@@ -1,0 +1,73 @@
+"""Wrapper of the CUDA flash-attention forward kernel (``csrc/flash_fwd.cu``).
+
+On a CUDA tensor it launches the kernel or raises; on a CPU tensor it runs
+the plain version, ``attention_ref``.  ``flash_attention.launches`` counts
+kernel launches and nothing else.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+_DTYPES = (torch.float32, torch.bfloat16)
+MAX_HEAD_DIM = 128
+
+
+def _check(q, k, v, window):
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be 4-D (B, S, H, D); got {tuple(t.shape)}")
+        if t.dtype not in _DTYPES:
+            raise TypeError(f"{name} dtype {t.dtype} not supported; use float32 or bfloat16")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"q, k, v devices differ: {q.device}, {k.device}, {v.device}")
+    B, Sq, Hq, D = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"shapes do not match: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if min(B, Sq, Skv, Hkv, D) < 1 or Hq % Hkv:
+        raise ValueError(f"need non-empty shapes and Hq % Hkv == 0: "
+                         f"q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {D} > {MAX_HEAD_DIM} is not supported by the kernel")
+    if window is not None and (isinstance(window, bool) or not isinstance(window, int)
+                               or window < 1):
+        raise ValueError(f"window must be None or an int >= 1; got {window!r}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window=None) -> torch.Tensor:
+    """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D) in q's dtype.
+
+    Same contract as the JAX package's ``flash_attention``: top-left aligned
+    causal mask, optional sliding window, f32 softmax.
+    """
+    _check(q, k, v, window)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    from repro_torch.kernels.flash_attention import build
+    lib = build.library()
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                            int(q.dtype == torch.bfloat16), B, Sq, Skv, Hq, Hkv, D,
+                            int(causal), window or 0, D ** -0.5, stream)
+    if err:
+        msg = lib.flash_fwd_error_string(err).decode()
+        raise RuntimeError(f"flash_fwd launch failed: CUDA error {err} ({msg})")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,0 +1,60 @@
+"""The CUDA flash-attention kernel against its plain version, on the card.
+
+Needs an NVIDIA card and nvcc; skips elsewhere.  It imports no JAX, so it
+runs on a machine without it:
+
+  python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.testing import KERNEL_CHECK_SHAPES, TOL, attention_inputs
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("shape", KERNEL_CHECK_SHAPES, ids=str)
+def test_kernel_matches_plain_version(cuda, shape):
+    window, dtype = shape[6], shape[7]
+    q, k, v = attention_inputs(shape, device=cuda)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref = attention_ref(q, k, v, causal=True, window=window)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert torch.isfinite(out.float()).all()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err < TOL["flash_f32" if dtype == "float32" else "flash_bf16"], err
+
+
+@pytest.mark.parametrize("Sq,Skv", [(70, 130), (130, 70)])
+@pytest.mark.parametrize("window", [None, 8])
+def test_kernel_without_causal_mask_matches_plain_version(cuda, Sq, Skv, window):
+    """(130, 70) with a window has rows with no live key."""
+    q, k, v = attention_inputs((2, Sq, Skv, 4, 2, 32, window, "float32"), device=cuda)
+    out = flash_attention(q, k, v, causal=False, window=window)
+    ref = attention_ref(q, k, v, causal=False, window=window)
+    assert (out - ref).abs().max().item() < TOL["flash_f32"]
+
+
+def test_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v = attention_inputs(KERNEL_CHECK_SHAPES[0], device=cuda)
+    with pytest.raises(ValueError):
+        flash_attention(q.transpose(1, 2), k, v)
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):
+        flash_attention(q, k, v, window=0)
