@@ -10,9 +10,9 @@ import importlib
 
 from repro_torch.configs.base import ModelConfig, MoEConfig, RunConfig
 
-ARCH_IDS = ("smollm-360m",)
+ARCH_IDS = ("smollm-360m", "recurrentgemma-2b")
 
-_MODULES = {"smollm-360m": "smollm_360m"}
+_MODULES = {"smollm-360m": "smollm_360m", "recurrentgemma-2b": "recurrentgemma_2b"}
 
 _NOT_YET_PORTED = (
     "mixtral-8x22b",
@@ -22,7 +22,6 @@ _NOT_YET_PORTED = (
     "qwen3-32b",
     "granite-8b",
     "command-r-plus-104b",
-    "recurrentgemma-2b",
     "chameleon-34b",
 )
 

@@ -76,9 +76,9 @@ class ModelConfig:
 class RunConfig:
     """Execution knobs, orthogonal to architecture.
 
-    In the port ``use_pallas`` selects the hand-written CUDA flash-attention
-    kernel for prefill (its plain PyTorch version on a CPU tensor); False
-    runs the plain version everywhere.  The training, sharding and
+    In the port ``use_pallas`` selects the hand-written CUDA kernels for
+    prefill, flash attention and the RG-LRU scan (their plain PyTorch
+    versions on a CPU tensor); False runs the plain versions everywhere.  The training, sharding and
     block-size knobs are kept for field parity and are not read by the
     serving path.
     """

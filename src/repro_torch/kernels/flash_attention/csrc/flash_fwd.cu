@@ -10,15 +10,20 @@
 //   * f32 running (m, l, acc) across kv tiles; out = acc / max(l, 1e-30),
 //     cast to the input type.  Inputs are f32 or bf16, arithmetic is f32.
 //
-// Design.  One block of 128 threads per (q tile of 64 rows, query head,
-// batch row).  The TPU's sequential kv grid axis becomes a loop inside the
-// block over kv tiles of 64 keys, staged in shared memory with Q.  Tiles
-// wholly above the causal diagonal or wholly before the window are never
-// visited (the Pallas grid visits them all).  Each thread owns a 4 x 8 patch
-// of the 64 x 64 score tile and a 4 x (DP/8) patch of the output, so every
-// shared-memory read feeds 2.7 FMAs; row max and row sum are reduced across
-// the 8 lanes that share a row with warp shuffles.  The head dim is padded to
-// DP in {32, 64, 128} with zeros in shared memory only; the wrapper never pads.
+// Design.  One block per (q tile of 64 rows, query head, batch row).  The
+// TPU's sequential kv grid axis becomes a loop inside the block over kv tiles
+// of 64 keys, staged in shared memory with Q.  Tiles wholly above the causal
+// diagonal or wholly before the window are never visited (the Pallas grid
+// visits them all).  The head dim is padded to DP in {32, 64, 128, 256} with
+// zeros in shared memory only; the wrapper never pads.  TX lanes share a
+// query row: each thread owns a 4 x (64/TX) patch of the 64 x 64 score tile
+// and a 4 x (DP/TX) patch of the output, and row max and row sum are reduced
+// across the TX lanes with warp shuffles.
+//   * DP <= 128: TX = 8, 128 threads; every shared-memory read feeds 2.7 FMAs.
+//   * DP = 256: TX = 16, 256 threads.  With TX = 8 the output patch alone
+//     would be 4 x 32 floats a thread, which with the scores does not fit in
+//     255 registers; with TX = 16 it is 4 x 16.  Q, K, V and P take 214.5 KB
+//     of shared memory, so one block (8 warps) runs on an SM.
 //
 // Sentinel.  m starts at -1e30, the masked score.  A row whose first visited
 // tile has no live key accumulates exp(0) = 1 weights there; the first live
@@ -27,13 +32,15 @@
 // uniform average over all Skv keys: its block visits every tile.  Keys past
 // Skv get weight 0 through -inf.
 //
-// Bound on an H100 SXM.  At the serving shape (B=4, S=512, Hq=15, Hkv=5,
-// D=64, f32) causal attention needs 4*D flops per live (q, k) pair:
-// 2.0 GFLOP, 30 us at the 67 TFLOP/s f32 CUDA-core peak, against 21 MB of
-// q/k/v/o, 6.3 us at 3.35 TB/s.  So it is bound by operations, about 96 flops
-// a byte.  This simple design leaves for later: tensor cores (mma.sync or
-// wgmma on bf16, TF32 for f32), cp.async/TMA double buffering of the K/V
-// tiles, 16-byte vector loads, and load balance across the causal triangle.
+// Bound on an H100 SXM.  Attention needs 4*D flops per live (q, k) pair.  At
+// smollm-360m's slice shape (B=4, S=512, Hq=15, Hkv=5, D=64, f32, causal)
+// that is 2.0 GFLOP, 30 us at the 67 TFLOP/s f32 CUDA-core peak, against
+// 21 MB of q/k/v/o, 6.3 us at 3.35 TB/s.  At recurrentgemma-2b's prefill
+// (B=4, S=2112, Hq=10, Hkv=1, D=256, window 2048) it is 91.3 GFLOP, 1.36 ms,
+// against 190 MB, 57 us.  So it is bound by operations.  This simple design
+// leaves for later: tensor cores (mma.sync or wgmma on bf16, TF32 for f32),
+// cp.async/TMA double buffering of the K/V tiles, 16-byte vector loads, and
+// load balance across the causal triangle.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -42,11 +49,19 @@ namespace {
 
 constexpr int BQ = 64;            // query rows per block
 constexpr int BKV = 64;           // keys per kv tile
-constexpr int THREADS = 128;      // thread (ty, tx) = (tid / 8, tid % 8)
 constexpr int RM = 4;             // rows of a thread: ty*4 + i
-constexpr int CN = BKV / 8;       // score columns of a thread: tx + 8*j
-constexpr int P_PITCH = BKV + 2;  // keeps P writes and reads free of bank conflicts
 constexpr float NEG_INF = -1e30f;
+
+// lanes that share a query row: 8 up to DP = 128, 16 at DP = 256
+template <int DP>
+__host__ __device__ constexpr int lanes() { return DP <= 128 ? 8 : 16; }
+// thread (ty, tx) = (tid / TX, tid % TX); BQ / RM = 16 row groups
+template <int DP>
+__host__ __device__ constexpr int threads() { return (BQ / RM) * lanes<DP>(); }
+// the 4 rows of a warp's P patch start TX banks apart: writes and reads of P
+// are free of bank conflicts
+template <int DP>
+__host__ __device__ constexpr int p_pitch() { return BKV + lanes<DP>() / 4; }
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
@@ -58,18 +73,36 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
 }
 
 template <int DP>
-constexpr int smem_floats() {
+__host__ __device__ constexpr int smem_floats() {
   // Q and K rows padded by one float so that column reads hit distinct banks
-  return BQ * (DP + 1) + BKV * (DP + 1) + BKV * DP + BQ * P_PITCH;
+  return BQ * (DP + 1) + BKV * (DP + 1) + BKV * DP + BQ * p_pitch<DP>();
+}
+
+// sum or max over the TX lanes of a row (a power of two, lanes contiguous)
+template <int TX>
+__device__ __forceinline__ float row_max(float x) {
+#pragma unroll
+  for (int o = 1; o < TX; o <<= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+template <int TX>
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int o = 1; o < TX; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
 }
 
 template <typename T, int DP>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(threads<DP>())
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int Sq, int Skv,
                  int Hq, int Hkv, int D, int causal, int window, float scale) {
+  constexpr int TX = lanes<DP>();
+  constexpr int THREADS = threads<DP>();
+  constexpr int CN = BKV / TX;  // score columns of a thread: tx + TX*j
+  constexpr int DC = DP / TX;   // output columns of a thread: tx + TX*c
   constexpr int QK_PITCH = DP + 1;
-  constexpr int DC = DP / 8;  // output columns of a thread: tx + 8*c
+  constexpr int P_PITCH = p_pitch<DP>();
   extern __shared__ float smem[];
   float* Qs = smem;                  // [BQ][QK_PITCH]
   float* Ks = Qs + BQ * QK_PITCH;    // [BKV][QK_PITCH]
@@ -77,7 +110,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* Ps = Vs + BKV * DP;         // [BQ][P_PITCH]
 
   const int tid = threadIdx.x;
-  const int ty = tid >> 3, tx = tid & 7;
+  const int ty = tid / TX, tx = tid % TX;
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
@@ -136,7 +169,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < RM; ++i) qv[i] = Qs[(ty * RM + i) * QK_PITCH + d];
 #pragma unroll
-      for (int j = 0; j < CN; ++j) kv[j] = Ks[(tx + 8 * j) * QK_PITCH + d];
+      for (int j = 0; j < CN; ++j) kv[j] = Ks[(tx + TX * j) * QK_PITCH + d];
 #pragma unroll
       for (int i = 0; i < RM; ++i)
 #pragma unroll
@@ -149,7 +182,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < CN; ++j) {
-        const int kj = k0 + tx + 8 * j;
+        const int kj = k0 + tx + TX * j;
         float x;
         if (kj >= Skv) {
           x = -INFINITY;  // not a key: weight exactly 0
@@ -160,9 +193,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         s[i][j] = x;
         mx = fmaxf(mx, x);
       }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      mx = row_max<TX>(mx);
       const float m_new = fmaxf(m[i], mx);
       const float corr = expf(m[i] - m_new);
       float sum = 0.f;
@@ -170,17 +201,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < CN; ++j) {
         const float p = expf(s[i][j] - m_new);
         sum += p;
-        Ps[(ty * RM + i) * P_PITCH + tx + 8 * j] = p;
+        Ps[(ty * RM + i) * P_PITCH + tx + TX * j] = p;
       }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+      sum = row_sum<TX>(sum);
       l[i] = l[i] * corr + sum;
       m[i] = m_new;
 #pragma unroll
       for (int c = 0; c < DC; ++c) acc[i][c] *= corr;
     }
-    __syncwarp();  // a warp reads back only the 16 rows of P it wrote
+    __syncwarp();  // a warp reads back only the rows of P it wrote
 
     const float* prow = Ps + ty * RM * P_PITCH;
 #pragma unroll 4
@@ -190,7 +219,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int i = 0; i < RM; ++i) pv[i] = prow[i * P_PITCH + kk];
 #pragma unroll
       for (int c = 0; c < DC; ++c) {
-        const float vv = Vs[kk * DP + tx + 8 * c];
+        const float vv = Vs[kk * DP + tx + TX * c];
 #pragma unroll
         for (int i = 0; i < RM; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
       }
@@ -204,7 +233,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
-      const int d = tx + 8 * c;
+      const int d = tx + TX * c;
       if (d < D) store_f32(ob + qi * q_row + d, acc[i][c] / denom);
     }
   }
@@ -215,11 +244,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
                    int Sq, int Skv, int Hq, int Hkv, int D, int causal,
                    int window, float scale, cudaStream_t stream) {
   constexpr int smem = smem_floats<DP>() * (int)sizeof(float);
+  static_assert(smem <= 232448, "over the 227 KB of shared memory of a block");
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  flash_fwd_kernel<T, DP><<<grid, THREADS, smem, stream>>>(
+  flash_fwd_kernel<T, DP><<<grid, threads<DP>(), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, Hq, Hkv, D,
       causal, window, scale);
@@ -234,20 +264,23 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
     return launch<T, 32>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, causal, window, scale, stream);
   if (D <= 64)
     return launch<T, 64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, causal, window, scale, stream);
-  return launch<T, 128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, causal, window, scale, stream);
+  if (D <= 128)
+    return launch<T, 128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, causal, window, scale, stream);
+  return launch<T, 256>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, causal, window, scale, stream);
 }
 
 }  // namespace
 
 // q: (B, Sq, Hq, D), k and v: (B, Skv, Hkv, D), o like q, all contiguous and
-// of one type (bf16 != 0: bfloat16, else float32).  window <= 0: no window.
-// Launches on `stream` without synchronising; returns the cudaError_t.
+// of one type (bf16 != 0: bfloat16, else float32), D <= 256.  window <= 0:
+// no window.  Launches on `stream` without synchronising; returns the
+// cudaError_t.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          int bf16, int B, int Sq, int Skv, int Hq, int Hkv,
                          int D, int causal, int window, float scale,
                          void* stream) {
   if (B < 1 || B > 65535 || Sq < 1 || Skv < 1 || Hkv < 1 || Hq < 1 ||
-      Hq > 65535 || Hq % Hkv != 0 || D < 1 || D > 128)
+      Hq > 65535 || Hq % Hkv != 0 || D < 1 || D > 256)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)

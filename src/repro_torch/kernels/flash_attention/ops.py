@@ -6,12 +6,24 @@ kernel launches and nothing else.
 """
 from __future__ import annotations
 
+import ctypes
+from pathlib import Path
+
 import torch
 
+from repro_torch.kernels import build as nvcc_build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu"
+_P, _I32 = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "flash_fwd": (_I32, [_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32,
+                         _I32, _I32, _I32, ctypes.c_float, _P]),
+    "flash_fwd_error_string": (ctypes.c_char_p, [_I32]),
+}
+
 _DTYPES = (torch.float32, torch.bfloat16)
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 
 
 def _check(q, k, v, window):
@@ -41,6 +53,11 @@ def _check(q, k, v, window):
         raise ValueError(f"window must be None or an int >= 1; got {window!r}")
 
 
+def library() -> ctypes.CDLL:
+    """The kernel's library, built from ``SOURCE`` at first use."""
+    return nvcc_build.load(SOURCE, _SIGNATURES)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window=None) -> torch.Tensor:
     """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D) in q's dtype.
@@ -53,8 +70,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
-    from repro_torch.kernels.flash_attention import build
-    lib = build.library()
+    lib = library()
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)

@@ -2,6 +2,8 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
       --batch 4 --prompt-len 256 --new-tokens 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \
+      --batch 4 --prompt-len 2112 --new-tokens 32
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 """
 from __future__ import annotations
@@ -20,7 +22,7 @@ from repro_torch.serve.engine import ServeEngine
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--arch", default="smollm-360m", choices=configs.ARCH_IDS)
     ap.add_argument("--smoke", action="store_true",
                     help="the reduced CPU-test config instead of the full one")
     ap.add_argument("--device", default="cuda")

@@ -20,6 +20,9 @@ TOL = {
     "module_f32": 1e-6,
     # smoke-model logits and decode steps, the tests/test_decode.py bar
     "logits_f32": 1e-4,
+    # the RG-LRU scan bar of tests/test_kernels.py, on y and h_T: f32 FMAs
+    # against separate multiply and add, errors damped by |a| < 1
+    "rglru_f32": 1e-5,
 }
 
 # (B, Sq, Skv, Hq, Hkv, D, window, dtype) at which the CUDA kernel is held
@@ -39,9 +42,28 @@ KERNEL_CHECK_SHAPES = (
     (4, 512, 512, 15, 5, 64, 128, "float32"),
     (4, 512, 512, 15, 5, 64, None, "bfloat16"),
     (4, 512, 512, 15, 5, 64, 128, "bfloat16"),
-    # Sq != Skv, with rows that have no live key; the widest head dim
+    # Sq != Skv, with rows that have no live key; the head dims 128 and 256
     (1, 100, 37, 6, 2, 32, 16, "float32"),
     (2, 70, 130, 4, 2, 128, None, "bfloat16"),
+    # head_dim 256: recurrentgemma-2b's prefill (MQA, window 2048, a prompt
+    # past the window), a bf16 windowed shape, and head_dim 200 padded to 256
+    # with Sq > Skv and rows that have no live key
+    (4, 2112, 2112, 10, 1, 256, 2048, "float32"),
+    (2, 300, 300, 10, 1, 256, 128, "bfloat16"),
+    (1, 130, 70, 4, 2, 200, 32, "float32"),
+)
+
+# (B, S, D) at which the CUDA RG-LRU scan is held against its plain version
+# on the card, all from a nonzero h0
+RGLRU_CHECK_SHAPES = (
+    # the scan shapes of tests/test_kernels.py
+    (2, 37, 16),
+    (1, 64, 40),
+    (2, 100, 24),
+    (1, 17, 8),
+    # one step, and recurrentgemma-2b's prefill
+    (3, 1, 2560),
+    (4, 2112, 2560),
 )
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -73,6 +95,17 @@ def attention_inputs(shape, seed: int = 0, device="cpu"):
     k = rng.standard_normal((B, Skv, Hkv, D), dtype=np.float32)
     v = rng.standard_normal((B, Skv, Hkv, D), dtype=np.float32)
     return tuple(to_torch(a, dtype, device) for a in (q, k, v))
+
+
+def scan_inputs(shape, seed: int = 0, device="cpu"):
+    """Seeded a in (0, 1), b and a nonzero h0 (all f32) for one
+    ``RGLRU_CHECK_SHAPES`` entry, drawn as tests/test_kernels.py draws them."""
+    B, S, D = shape
+    rng = np.random.default_rng(seed)
+    a = 1.0 / (1.0 + np.exp(-rng.standard_normal((B, S, D), dtype=np.float32)))
+    b = rng.standard_normal((B, S, D), dtype=np.float32)
+    h0 = rng.standard_normal((B, D), dtype=np.float32)
+    return tuple(to_torch(x, "float32", device) for x in (a, b, h0))
 
 
 def max_abs_diff(a, b) -> float:

@@ -1,4 +1,5 @@
-"""The CUDA flash-attention kernel against its plain version, on the card.
+"""The CUDA kernels (flash attention, RG-LRU scan) against their plain
+versions, on the card.
 
 Needs an NVIDIA card and nvcc; skips elsewhere.  It imports no JAX, so it
 runs on a machine without it:
@@ -11,7 +12,10 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
-from repro_torch.testing import KERNEL_CHECK_SHAPES, TOL, attention_inputs
+from repro_torch.kernels.rglru.ops import linear_scan
+from repro_torch.kernels.rglru.ref import linear_scan_ref
+from repro_torch.testing import (KERNEL_CHECK_SHAPES, RGLRU_CHECK_SHAPES, TOL,
+                                 attention_inputs, scan_inputs)
 
 pytestmark = pytest.mark.cuda
 
@@ -58,3 +62,31 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         flash_attention(q.half(), k.half(), v.half())
     with pytest.raises(ValueError):
         flash_attention(q, k, v, window=0)
+
+
+@pytest.mark.parametrize("shape", RGLRU_CHECK_SHAPES, ids=str)
+def test_scan_kernel_matches_plain_version(cuda, shape):
+    a, b, h0 = scan_inputs(shape, device=cuda)
+    before = linear_scan.launches
+    y, hT = linear_scan(a, b, h0)
+    torch.cuda.synchronize()
+    assert linear_scan.launches == before + 1
+    ry, rhT = linear_scan_ref(a, b, h0)
+    assert y.shape == a.shape and hT.shape == h0.shape and y.dtype == torch.float32
+    assert torch.isfinite(y).all() and torch.isfinite(hT).all()
+    assert (y - ry).abs().max().item() < TOL["rglru_f32"]
+    assert (hT - rhT).abs().max().item() < TOL["rglru_f32"]
+
+
+def test_scan_kernel_refuses_what_it_does_not_take(cuda):
+    a, b, h0 = scan_inputs(RGLRU_CHECK_SHAPES[0], device=cuda)
+    before = linear_scan.launches
+    with pytest.raises(TypeError):
+        linear_scan(a.bfloat16(), b.bfloat16(), h0.bfloat16())
+    with pytest.raises(TypeError):
+        linear_scan(a, b, h0.double())
+    with pytest.raises(ValueError):
+        linear_scan(a.transpose(1, 2), b, h0)
+    with pytest.raises(ValueError):
+        linear_scan(a, b, h0.cpu())
+    assert linear_scan.launches == before

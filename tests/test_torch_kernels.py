@@ -72,9 +72,40 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="Hq % Hkv"):
         flash_attention(q[:, :, :3].contiguous(), k, v)
     with pytest.raises(ValueError, match="head_dim"):
-        big = torch.zeros(1, 4, 2, 129)
+        big = torch.zeros(1, 4, 2, 257)
         flash_attention(big, big, big)
+    widest = torch.zeros(1, 4, 2, 256)          # the kernel's widest head dim
+    assert flash_attention(widest, widest, widest).shape == widest.shape
     with pytest.raises(ValueError, match="window"):
         flash_attention(q, k, v, window=0)
     with pytest.raises(ValueError, match="shapes"):
         flash_attention(q, k, v[:, :8].contiguous())
+
+
+def test_shared_builder_names_by_source_hash_and_loads_once(tmp_path, monkeypatch):
+    """The library name follows the source's bytes; ``load`` builds and binds
+    a source once per process and sets each signature it is given."""
+    import ctypes
+    import ctypes.util
+
+    from repro_torch.kernels import build as nvcc_build
+
+    src = tmp_path / "k.cu"
+    src.write_text("// one\n")
+    first = nvcc_build.library_path(src)
+    assert first.name.startswith("k-") and first.suffix == ".so"
+    src.write_text("// two\n")
+    assert nvcc_build.library_path(src) != first
+
+    libc = ctypes.util.find_library("c")
+    if libc is None:
+        pytest.skip("no C library to stand in for a built kernel")
+    calls = []
+    monkeypatch.setattr(nvcc_build, "build",
+                        lambda s: calls.append(s) or nvcc_build.Built(libc, 0.0, ""))
+    monkeypatch.setattr(nvcc_build, "_LOADED", {})
+    sig = {"strlen": (ctypes.c_size_t, [ctypes.c_char_p])}
+    lib = nvcc_build.load(src, sig)
+    assert nvcc_build.load(src, sig) is lib and calls == [src]
+    assert lib.strlen(b"hopper") == 6
+    assert lib.strlen.argtypes == [ctypes.c_char_p]

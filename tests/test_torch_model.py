@@ -34,7 +34,7 @@ def model():
     jax_cfg = jax_configs.get_smoke_config(ARCH)
     jax_params, _ = JaxLM.init(jax_cfg, jax_run, jax.random.PRNGKey(0))
     params = params_from_jax(jax.tree_util.tree_map(np.asarray, jax_params),
-                             device="cpu")
+                             configs.get_smoke_config(ARCH), device="cpu")
     return (jax_cfg, jax_run, jax_params,
             configs.get_smoke_config(ARCH), RunConfig(**dataclasses.asdict(jax_run)),
             params)
@@ -80,7 +80,7 @@ def test_decode_steps_match_jax(model, use_pallas):
         assert max_abs_diff(ours, theirs) < TOL["logits_f32"], i
     # the in-place cache holds what the JAX package's returned cache holds
     k_jax = np.asarray(jax_cache["groups"][0]["kv"]["k"])
-    assert max_abs_diff(cache["k"], k_jax) < TOL["logits_f32"]
+    assert max_abs_diff(torch.stack([c["k"] for c in cache]), k_jax) < TOL["logits_f32"]
 
 
 def test_greedy_generate_matches_jax_token_for_token(model):
@@ -123,10 +123,11 @@ def test_cpu_wrapper_launches_no_kernel(model):
 
 @pytest.mark.parametrize("change,name", [
     (dict(qk_norm=True), "qk_norm"),
-    (dict(sliding_window=16), "sliding_window"),
-    (dict(local_window=16), "local_window"),
+    (dict(sliding_window=16, moe=MoEConfig(n_experts=4, d_ff_expert=32)), "MoE"),
+    (dict(family="hybrid", local_window=16, block_pattern=("rglru", "rwkv")),
+     "rwkv blocks"),
     (dict(moe=MoEConfig(n_experts=4, d_ff_expert=32)), "MoE"),
-    (dict(block_pattern=("rglru", "rglru", "attn")), "rglru blocks"),
+    (dict(block_pattern=("rglru", "rglru", "attn"), qk_norm=True), "qk_norm"),
     (dict(family="ssm"), "rwkv blocks"),
     (dict(mlp_variant="gelu"), "mlp_variant"),
     (dict(tie_embeddings=False), "untied"),
@@ -138,6 +139,21 @@ def test_unported_options_raise(model, change, name):
         LM.init(bad, run, device="cpu")
     with pytest.raises(NotImplementedError, match=name):
         ServeEngine(bad, run, params)
+
+
+@pytest.mark.parametrize("change", [
+    dict(sliding_window=16),
+    dict(family="hybrid", local_window=16),
+    dict(family="hybrid", block_pattern=("rglru", "rglru", "attn"), local_window=16),
+], ids=["sliding_window", "local_window", "rglru_blocks"])
+def test_windowed_and_rglru_options_are_ported(model, change):
+    *_, cfg, run, _ = model
+    cfg = cfg.replace(**change)
+    params = LM.init(cfg, run, seed=0, device="cpu")
+    engine = ServeEngine(cfg, run, params, max_seq=40)
+    prompts = torch.from_numpy(_tokens(8, (1, 20), cfg.vocab_size)).long()
+    out = engine.generate(prompts, max_new_tokens=4)
+    assert out.shape == (1, 24) and ((out >= 0) & (out < cfg.vocab_size)).all()
 
 
 def test_quantized_serving_and_training_raise(model):
@@ -159,7 +175,7 @@ def test_entry_points_default_to_cuda_and_refuse_without_it(model, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         LM.init(cfg, run)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        params_from_jax(jax.tree_util.tree_map(np.asarray, jax_params))
+        params_from_jax(jax.tree_util.tree_map(np.asarray, jax_params), cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve_cli.main(["--smoke"])
 

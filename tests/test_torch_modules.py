@@ -46,7 +46,7 @@ def test_smollm_config_matches_jax(getter):
     assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-32b", "rwkv6-3b", "recurrentgemma-2b",
+@pytest.mark.parametrize("arch", ["qwen3-32b", "rwkv6-3b", "granite-8b",
                                   "mixtral-8x22b"])
 def test_registry_refuses_archs_not_yet_ported(arch):
     assert arch in jax_configs.ARCH_IDS
@@ -66,7 +66,7 @@ def _jax_params(cfg_name="smollm-360m", seed=0):
 
 def test_params_from_jax_carries_every_leaf_exactly():
     cfg, tree = _jax_params()
-    ours = params_from_jax(tree, device="cpu")
+    ours = params_from_jax(tree, configs.get_smoke_config("smollm-360m"), device="cpu")
     seen = 0
     for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
         keys = [getattr(p, "key", getattr(p, "idx", None)) for p in path]
@@ -91,7 +91,7 @@ def test_params_from_jax_carries_every_leaf_exactly():
 def test_params_from_jax_refuses_unported_leaves():
     _, tree = _jax_params("qwen3-32b")          # qk-norm adds q_norm / k_norm
     with pytest.raises(NotImplementedError):
-        params_from_jax(tree, device="cpu")
+        params_from_jax(tree, configs.get_smoke_config("smollm-360m"), device="cpu")
 
 
 def test_init_matches_jax_names_shapes_and_fan_in_scale():
