@@ -10,7 +10,9 @@ Phases, one JSON line each:
                and spills for every template;
   3. check   - each kernel against its plain PyTorch version on the card:
                flash_fwd at repro_torch.testing.KERNEL_CHECK_SHAPES,
-               rglru_scan at RGLRU_CHECK_SHAPES;
+               rglru_scan at RGLRU_CHECK_SHAPES, wkv6 at WKV6_CHECK_SHAPES
+               (y and the final state; streams contiguous and in the
+               model's (B, S, H, N) layout);
   4. time    - kernel, plain version and library yardstick (CUDA events,
                median of 30 after warm-up) beside the kernel's bound, at the
                shapes the serving paths give each kernel;
@@ -28,7 +30,16 @@ Phases, one JSON line each:
                and rglru_scan once per recurrent layer (18), decode neither,
                and its logits and final recurrent states must agree with the
                plain prefill.
-Then the kernels' summary line, and last {"ok": true, "device": {...}}.
+  7. serve   - full-width rwkv6-3b the same way: 4 requests of 2100 prompt
+               tokens (not a multiple of 64: the kernel's and the plain
+               chunked path's tails run) and 32 new ones; wkv6 once per layer
+               (32) in prefill and never in decode; logits, every layer's WKV
+               state and its last normed tokens must agree with the plain
+               prefill (time_mix_chunked).
+Every serve phase first gives the leaves LM.init sets to constants seeded
+noise (repro_torch.testing.perturb_zero_leaves), so the norms, mixes, decay
+LoRA and bonus take part.  Then the kernels' summary line, and last
+{"ok": true, "device": {...}}.
 Any failure raises and the script exits non-zero without the last line;
 so does a machine without a CUDA card.
 """
@@ -58,10 +69,14 @@ from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.rglru import ops as rglru_ops  # noqa: E402
 from repro_torch.kernels.rglru.ops import linear_scan  # noqa: E402
 from repro_torch.kernels.rglru.ref import linear_scan_ref  # noqa: E402
+from repro_torch.kernels.rwkv6 import ops as wkv6_ops  # noqa: E402
+from repro_torch.kernels.rwkv6.ops import wkv6  # noqa: E402
+from repro_torch.kernels.rwkv6.ref import wkv6_ref  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.testing import (KERNEL_CHECK_SHAPES, RGLRU_CHECK_SHAPES, TOL,  # noqa: E402
-                                 attention_inputs, scan_inputs)
+                                 WKV6_CHECK_SHAPES, attention_inputs,
+                                 perturb_zero_leaves, scan_inputs, wkv_inputs)
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_FLOPS = {"float32": 67e12,     # f32 on CUDA cores
@@ -79,7 +94,15 @@ KERNELS = {
         wrapper=linear_scan, ops=rglru_ops, route="cuda",
         source="src/repro_torch/kernels/rglru/csrc/rglru_scan.cu",
         replaces="src/repro/kernels/rglru/kernel.py:60"),
+    "wkv6": dict(
+        wrapper=wkv6, ops=wkv6_ops, route="cuda",
+        source="src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
+        replaces="src/repro/kernels/rwkv6/kernel.py:70"),
 }
+# the kernel a layer of each kind launches in prefill
+KERNEL_OF_KIND = {"attn": "flash_fwd", "rglru": "rglru_scan", "rwkv": "wkv6"}
+# the recurrent state of a layer of each kind, held against the plain prefill
+STATE_OF_KIND = {"rglru": "h", "rwkv": "state"}
 
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 256, 32
 # recurrentgemma-2b: a prompt past the 2048 window, so prefill rolls the ring
@@ -89,9 +112,13 @@ MAIN_SHAPE = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 15, 5, 64, None, "float32
 SLICE_SHAPE = (4, 512, 512, 15, 5, 64, None, "float32")
 RG_SHAPE = (SERVE_BATCH, RG_PROMPT, RG_PROMPT, 10, 1, 256, 2048, "float32")
 RG_SCAN_SHAPE = (SERVE_BATCH, RG_PROMPT, 2560)
+# rwkv6-3b: a prompt that is not a multiple of 64 (nor of the kernel's tile)
+RWKV_PROMPT, RWKV_NEW = 2100, 32
+WKV_SHAPE = (SERVE_BATCH, 40, RWKV_PROMPT, 64, "float32")
 # prefill last logits, kernels vs plain versions, after 26 to 32 full-width
-# f32 layers: the per-layer kernel bars (5e-6, 1e-5) grow with depth through
-# the residual; the same bar holds the final recurrent states
+# f32 layers: the per-layer kernel bars (5e-6, 1e-5, 5e-5) grow with depth
+# through the residual; the same bar holds the final recurrent states (the
+# RWKV states, near 30 in magnitude, the largest) and RWKV's last tokens
 LOGITS_TOL = 1e-3
 
 
@@ -157,6 +184,21 @@ def scan_bound(shape):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def wkv_bound(shape):
+    """Least time the card could take for WKV6: (ms, "bytes" | "operations").
+    Bytes: r, k, v (in their dtype) and logw read once, y written once, u,
+    state0 read and the final state written.  Operations per (b, h, t):
+    y_t = r_t S_{t-1} is N^2 FMAs (2 N^2 flops), S_t = w_t S_{t-1} + k_t v_t^T
+    a multiply and an FMA per entry (3 N^2), the bonus sum_i r u k (3 N),
+    its product with v and the add (2 N) and exp(logw) (N): 5 N^2 + 6 N."""
+    B, H, S, N, dtype = shape
+    elem = 4 if dtype == "float32" else 2
+    nbytes = (3 * elem + 4 + 4) * B * H * S * N + 4 * (H * N + 2 * B * H * N * N)
+    flops = (5 * N * N + 6 * N) * B * H * S
+    t_ops, t_bytes = flops / PEAK_FLOPS["float32"], nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def phase_build() -> None:
     """One nvcc for each kernel source, all started together."""
     with ThreadPoolExecutor(len(KERNELS)) as pool:
@@ -216,6 +258,35 @@ def check_scan(dev) -> float:
     return main_err
 
 
+def check_wkv(dev) -> float:
+    """wkv6 vs wkv6_ref (y and the final state) at every check shape, from a
+    nonzero state0; returns the max abs error at the serving shape."""
+    rows, bad, main_err = [], [], None
+    for shape in WKV6_CHECK_SHAPES:
+        # streams as contiguous (B, H, S, N), then as the model's heads lay
+        # them out: (1, 2) transposes of contiguous (B, S, H, N)
+        for seq_major in (False, True):
+            r, k, v, logw, u, s0 = wkv_inputs(shape, device=dev, seq_major=seq_major)
+            y, sT = wkv6(r, k, v, logw, u, s0)
+            torch.cuda.synchronize()
+            ry, rsT = wkv6_ref(r, k, v, logw, u, s0)
+            err_y = (y - ry).abs().max().item()
+            err_s = (sT - rsT).abs().max().item()
+            finite = bool(torch.isfinite(y).all() and torch.isfinite(sT).all())
+            rows.append({"shape": list(shape), "seq_major": seq_major,
+                         "y_max_abs_err": err_y, "state_max_abs_err": err_s,
+                         "state_max_abs": rsT.abs().max().item(), "tol": TOL["wkv6"]})
+            if not (finite and err_y < TOL["wkv6"] and err_s < TOL["wkv6"]):
+                bad.append([*shape, seq_major])
+            if shape == WKV_SHAPE and seq_major:
+                main_err = max(err_y, err_s)
+            del r, k, v, logw, u, s0, y, sT, ry, rsT
+    emit("check", kernel="wkv6", results=rows, failed=bad)
+    if bad:
+        raise RuntimeError(f"wkv6 disagrees with wkv6_ref at {bad}")
+    return main_err
+
+
 def time_flash(shape, dev) -> dict:
     q, k, v = attention_inputs(shape, device=dev)
     window = shape[6]
@@ -256,6 +327,29 @@ def time_scan(shape, dev) -> dict:
     }
 
 
+def time_wkv(shape, dev) -> dict:
+    """In the model's layout of the streams, with the column split wkv6
+    picks there.  Also times the blocks of one (b, h) alone at that split: a
+    block walks its S steps in order, so a full-shape time near the lone
+    (b, h)'s says the step chain, not the card's throughput, sets the
+    kernel's time."""
+    r, k, v, logw, u, s0 = wkv_inputs(shape, device=dev, seq_major=True)
+    one = wkv_inputs((1, 1) + tuple(shape[2:]), device=dev, seq_major=True)
+    bound, bound_by = wkv_bound(shape)
+    B, H, _, N, _ = shape
+    split = wkv6_ops.col_split(B * H, N, torch.cuda.get_device_properties(dev)
+                               .multi_processor_count)
+    return {
+        "shape": list(shape),
+        "col_split": split,
+        "ms": time_ms(lambda: wkv6(r, k, v, logw, u, s0)),
+        "one_block_ms": time_ms(lambda: wkv6_ops.launch(*one, col_split=split)),
+        "plain_ms": time_ms(lambda: wkv6_ref(r, k, v, logw, u, s0), reps=5, warmup=1),
+        "library_ms": None,    # no single PyTorch call computes this recurrence
+        "bound_ms": bound, "bound_by": bound_by,
+    }
+
+
 def phase_time(dev) -> dict:
     """Times of each kernel at the shapes the serving paths give it."""
     flash = {s: time_flash(s, dev) for s in (MAIN_SHAPE, SLICE_SHAPE, RG_SHAPE)}
@@ -264,7 +358,10 @@ def phase_time(dev) -> dict:
     scan = time_scan(RG_SCAN_SHAPE, dev)
     emit("time", kernel="rglru_scan", peak_flops=PEAK_FLOPS,
          hbm_bytes_per_s=HBM_BYTES_PER_S, results=[scan])
-    return {"flash_fwd": flash, "rglru_scan": scan}
+    wkv = time_wkv(WKV_SHAPE, dev)
+    emit("time", kernel="wkv6", peak_flops=PEAK_FLOPS,
+         hbm_bytes_per_s=HBM_BYTES_PER_S, results=[wkv])
+    return {"flash_fwd": flash, "rglru_scan": scan, "wkv6": wkv}
 
 
 def reset_launches() -> None:
@@ -278,16 +375,22 @@ def read_launches() -> dict:
 
 def phase_serve(dev, arch: str, prompt_len: int, new_tokens: int) -> dict:
     """Serve ``arch`` at full width through ServeEngine.generate, cold then
-    warm; returns the kernels' launches in the cold (main-path) request."""
+    warm, on seeded weights whose constant leaves are perturbed; returns the
+    kernels' launches in the cold (main-path) request."""
     cfg = configs.get_config(arch)
     run = RunConfig(param_dtype="float32", activation_dtype="float32", use_pallas=True)
     kinds = cfg.layer_kinds
-    expected = {"flash_fwd": kinds.count("attn"), "rglru_scan": kinds.count("rglru")}
+    expected = {name: sum(KERNEL_OF_KIND[kind] == name for kind in kinds)
+                for name in KERNELS}
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     params = LM.init(cfg, run, seed=0, device=dev)
+    noise = torch.Generator(device=dev)
+    noise.manual_seed(2)
+    perturbed = perturb_zero_leaves(params, cfg, noise)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
     engine = ServeEngine(cfg, run, params, max_seq=prompt_len + new_tokens)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
@@ -317,9 +420,21 @@ def phase_serve(dev, arch: str, prompt_len: int, new_tokens: int) -> dict:
     if prefill_launches != expected:     # so decode launched no kernel
         raise RuntimeError(f"{arch}: prefill alone launched {prefill_launches}, "
                            f"expected {expected}")
-    h_err = max([(kc["h"] - pc["h"]).abs().max().item()
-                 for kc, pc, kind in zip(kern_cache, plain_cache, kinds)
-                 if kind == "rglru"], default=0.0)
+    # every recurrent layer's final state, and RWKV's last normed tokens,
+    # against the plain prefill's
+    state_errs, state_abs, x_prev_err = [], 0.0, 0.0
+    for kc, pc, kind in zip(kern_cache, plain_cache, kinds):
+        if kind in STATE_OF_KIND:
+            key = STATE_OF_KIND[kind]
+            state_errs.append((kc[key] - pc[key]).abs().max().item())
+            state_abs = max(state_abs, pc[key].abs().max().item())
+        if kind == "rwkv":
+            x_prev_err = max([x_prev_err] + [(kc[key] - pc[key]).abs().max().item()
+                                             for key in ("tm_x_prev", "cm_x_prev")])
+    # the first layer's time-mix input precedes every kernel: identical
+    first_x_prev_equal = kinds[0] != "rwkv" or torch.equal(
+        kern_cache[0]["tm_x_prev"], plain_cache[0]["tm_x_prev"])
+    state_err = max(state_errs, default=0.0)
     del kern_cache, plain_cache
     engine.generate(prompts, max_new_tokens=new_tokens)   # the same request, warm
     warm = engine.stats
@@ -328,8 +443,9 @@ def phase_serve(dev, arch: str, prompt_len: int, new_tokens: int) -> dict:
     first_token_ok = bool(torch.equal(kern[:, -1].argmax(-1), out[:, prompt_len]))
     n_new = SERVE_BATCH * new_tokens
     emit("serve", arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+         params=n_params, perturbed_leaves=perturbed,
          batch=SERVE_BATCH, prompt_len=prompt_len, new_tokens=new_tokens,
-         launches=launches, flash_launches=launches["flash_fwd"], init_s=init_s,
+         launches=launches, expected_launches=expected, init_s=init_s,
          prefill_ms=1e3 * st.prefill_s,
          decode_ms_per_token=1e3 * st.decode_s / st.decode_steps,
          tok_per_s=n_new / (st.prefill_s + st.decode_s),
@@ -339,13 +455,24 @@ def phase_serve(dev, arch: str, prompt_len: int, new_tokens: int) -> dict:
          peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
          logits_finite=bool(torch.isfinite(kern).all()),
          logits_max_abs_err=err, logits_tol=LOGITS_TOL,
-         rglru_h_max_abs_err=h_err,
+         state_max_abs_err=state_err, state_max_abs_err_per_layer=state_errs,
+         state_max_abs=state_abs, x_prev_max_abs_err=x_prev_err,
+         first_x_prev_equal=first_x_prev_equal,
          argmax_agree=argmax_agree, first_token_matches_prefill=first_token_ok)
-    if not (bool(torch.isfinite(kern).all()) and err < LOGITS_TOL and h_err < LOGITS_TOL
+    if not (bool(torch.isfinite(kern).all()) and err < LOGITS_TOL and state_err < LOGITS_TOL
+            and x_prev_err < LOGITS_TOL and first_x_prev_equal
             and argmax_agree and first_token_ok):
         raise RuntimeError(f"{arch}: full-width prefill through the kernels disagrees "
                            f"with the plain prefill")
     return launches
+
+
+def _leaves(tree):
+    for value in (tree.values() if isinstance(tree, dict) else tree):
+        if isinstance(value, (dict, list)):
+            yield from _leaves(value)
+        else:
+            yield value
 
 
 def free_device() -> None:
@@ -365,12 +492,15 @@ def main() -> int:
     phase_build()
     flash_errs = check_flash(dev)
     scan_err = check_scan(dev)
+    wkv_err = check_wkv(dev)
     free_device()
     timing = phase_time(dev)
     free_device()
     paths = {"smollm-360m": phase_serve(dev, "smollm-360m", SERVE_PROMPT, SERVE_NEW)}
     free_device()
     paths["recurrentgemma-2b"] = phase_serve(dev, "recurrentgemma-2b", RG_PROMPT, RG_NEW)
+    free_device()
+    paths["rwkv6-3b"] = phase_serve(dev, "rwkv6-3b", RWKV_PROMPT, RWKV_NEW)
 
     def entry(name, row, err):
         return {"name": name, "route": KERNELS[name]["route"],
@@ -387,7 +517,8 @@ def main() -> int:
                                               "bound_by", "library_ms")}
                           | {"max_abs_err": flash_errs[RG_SHAPE]}]
     scan = entry("rglru_scan", timing["rglru_scan"], scan_err)
-    print(json.dumps({"kernels": [flash, scan]}), flush=True)
+    wkv = entry("wkv6", timing["wkv6"], wkv_err)
+    print(json.dumps({"kernels": [flash, scan, wkv]}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0
 

@@ -10,14 +10,14 @@ import importlib
 
 from repro_torch.configs.base import ModelConfig, MoEConfig, RunConfig
 
-ARCH_IDS = ("smollm-360m", "recurrentgemma-2b")
+ARCH_IDS = ("smollm-360m", "recurrentgemma-2b", "rwkv6-3b")
 
-_MODULES = {"smollm-360m": "smollm_360m", "recurrentgemma-2b": "recurrentgemma_2b"}
+_MODULES = {"smollm-360m": "smollm_360m", "recurrentgemma-2b": "recurrentgemma_2b",
+            "rwkv6-3b": "rwkv6_3b"}
 
 _NOT_YET_PORTED = (
     "mixtral-8x22b",
     "qwen2-moe-a2.7b",
-    "rwkv6-3b",
     "musicgen-large",
     "qwen3-32b",
     "granite-8b",

@@ -77,10 +77,11 @@ class RunConfig:
     """Execution knobs, orthogonal to architecture.
 
     In the port ``use_pallas`` selects the hand-written CUDA kernels for
-    prefill, flash attention and the RG-LRU scan (their plain PyTorch
-    versions on a CPU tensor); False runs the plain versions everywhere.  The training, sharding and
-    block-size knobs are kept for field parity and are not read by the
-    serving path.
+    prefill, flash attention, the RG-LRU scan and WKV6 (their plain PyTorch
+    versions on a CPU tensor); False runs the plain versions everywhere.
+    As in the JAX package, only the plain WKV path reads ``rwkv_chunk`` and
+    ``rwkv_bf16_streams``.  The training, sharding and block-size knobs are
+    kept for field parity and are not read by the serving path.
     """
     param_dtype: str = "bfloat16"
     activation_dtype: str = "bfloat16"

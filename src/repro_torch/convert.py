@@ -4,8 +4,9 @@ The JAX tree holds the stack as ``stack.groups``, one tree per slot of the
 block pattern with every leaf stacked over ``n_groups``, and ``stack.tail``,
 one unstacked tree per trailing layer.  The port keeps one dict per layer, in
 layer order: layer ``g * len(pattern) + j`` is ``groups[j][g]``, then the
-tail, as ``transformer.grouping`` of the config says.  Leaves come in as numpy arrays (``np.asarray`` of the JAX arrays), so
-nothing here imports JAX.
+tail, as ``transformer.grouping`` of the config says.  An untied config also
+carries the top-level ``unembed`` leaf.  Leaves come in as numpy arrays
+(``np.asarray`` of the JAX arrays), so nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -23,6 +24,11 @@ _BLOCK_LEAVES = {
               "rec": ("w_in_a", "w_in_b", "conv_w", "w_gate_a", "w_gate_x",
                       "lam", "w_out"),
               "mlp": _MLP},
+    "rwkv": {**{name: None for name in (
+                 "norm_tm", "norm_cm", "mix_r", "mix_k", "mix_v", "mix_w", "mix_g",
+                 "w_bias", "w_lora_a", "w_lora_b", "bonus_u", "wr", "wk", "wv", "wg",
+                 "wo", "ln_x_scale")},
+             "cm": ("mix_k", "mix_r", "wk", "wv", "wr")},
 }
 
 
@@ -37,8 +43,8 @@ def _expect_keys(tree, keys, where):
     got = sorted(tree)
     if got != sorted(keys):
         raise NotImplementedError(
-            f"{where}: expected leaves {sorted(keys)}, got {got}; only attention "
-            f"and RG-LRU blocks with tied embeddings are ported")
+            f"{where}: expected leaves {sorted(keys)}, got {got}; only attention, "
+            f"RG-LRU and RWKV-6 blocks are ported")
 
 
 def _block(tree, kind, where, index=None) -> dict:
@@ -69,7 +75,8 @@ def params_from_jax(tree, cfg, device: DeviceLike = None) -> dict:
     on ``device``.  The tree must split the stack as ``transformer.grouping``
     says."""
     dev = resolve_device(device)
-    _expect_keys(tree, ("embed", "final_norm", "stack"), "params")
+    top = ("embed", "final_norm", "stack") + (() if cfg.tie_embeddings else ("unembed",))
+    _expect_keys(tree, top, "params")
     pattern, n_groups, tail_kinds = transformer.grouping(cfg)
     groups, tail = tree["stack"]["groups"], tree["stack"]["tail"]
     if len(groups) != len(pattern) or len(tail) != len(tail_kinds):
@@ -77,7 +84,8 @@ def params_from_jax(tree, cfg, device: DeviceLike = None) -> dict:
                          f"layers; {cfg.name} needs {len(pattern)} and {len(tail_kinds)}")
     for j, kind in enumerate(pattern):
         _block(groups[j], kind, f"stack.groups[{j}]")       # leaf names only
-        stacked = np.shape(groups[j]["norm1"])[0]
+        first = next(name for name, sub in _BLOCK_LEAVES[kind].items() if sub is None)
+        stacked = np.shape(groups[j][first])[0]
         if stacked != n_groups:
             raise ValueError(f"stack.groups[{j}] stacks {stacked} layers; "
                              f"{cfg.name} has {n_groups} groups")
@@ -85,6 +93,6 @@ def params_from_jax(tree, cfg, device: DeviceLike = None) -> dict:
               for g in range(n_groups) for j, kind in enumerate(pattern)]
     layers += [_block(t, kind, f"stack.tail[{i}]")
                for i, (t, kind) in enumerate(zip(tail, tail_kinds))]
-    return {"embed": _tensor(tree["embed"], dev),
-            "final_norm": _tensor(tree["final_norm"], dev),
-            "layers": [_to_device(layer, dev) for layer in layers]}
+    params = {name: _tensor(tree[name], dev) for name in top if name != "stack"}
+    params["layers"] = [_to_device(layer, dev) for layer in layers]
+    return params

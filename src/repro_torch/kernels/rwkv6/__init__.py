@@ -1,0 +1,1 @@
+from repro_torch.kernels.rwkv6.ops import wkv6

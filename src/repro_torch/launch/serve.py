@@ -4,6 +4,8 @@
       --batch 4 --prompt-len 256 --new-tokens 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \
       --batch 4 --prompt-len 2112 --new-tokens 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
+      --batch 4 --prompt-len 2100 --new-tokens 32
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 """
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """Top-level LM facade: embedding, stack, logits, prefill/decode.
 
 ``LM`` is a namespace of functions over (params, cfg, run), as in the JAX
-package.  Params are ``{"embed", "final_norm", "layers": [per-layer dict]}``.
+package.  Params are ``{"embed", "final_norm", "layers": [per-layer dict]}``,
+plus ``"unembed"`` (M, V) when the config does not tie the embeddings.
 """
 from __future__ import annotations
 
@@ -26,6 +27,9 @@ class LM:
         pb = ParamBuilder(gen, torch_dtype(run.param_dtype))
         pb.param("embed", (cfg.vocab_size, cfg.d_model), init=fan_in_init(cfg.d_model))
         pb.param("final_norm", (cfg.d_model,), init=zeros_init)
+        if not cfg.tie_embeddings:
+            pb.param("unembed", (cfg.d_model, cfg.vocab_size),
+                     init=fan_in_init(cfg.d_model))
         params = pb.params
         params["layers"] = transformer.init_stack(cfg, gen, pb.dtype)
         return params
@@ -47,15 +51,16 @@ class LM:
         return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
     @staticmethod
-    def _unembed(params, h):
-        """Tied unembedding, products of h.dtype values summed in f32:
-        (B, S, M) -> (B, S, V)."""
-        return h.float() @ params["embed"].to(h.dtype).float().T
+    def _unembed(params, cfg, h):
+        """Logits, products of h.dtype values summed in f32: (B, S, M) ->
+        (B, S, V), through the embedding (tied) or the ``unembed`` leaf."""
+        w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+        return h.float() @ w.to(h.dtype).float()
 
     @staticmethod
     def logits(params, cfg, run, tokens):
         """Full logits (small-model paths only: tests)."""
-        return LM._unembed(params, LM.hidden(params, cfg, run, tokens))
+        return LM._unembed(params, cfg, LM.hidden(params, cfg, run, tokens))
 
     @staticmethod
     def loss(params, cfg, run, tokens, labels, label_mask=None):
@@ -70,11 +75,11 @@ class LM:
         cache = transformer.init_cache(cfg, tokens.shape[0], max_seq, adt,
                                        tokens.device)
         h = LM.hidden(params, cfg, run, tokens, mode="prefill", cache=cache)
-        return LM._unembed(params, h[:, -1:]), cache
+        return LM._unembed(params, cfg, h[:, -1:]), cache
 
     @staticmethod
     def decode_step(params, cfg, run, tokens, cache, pos: int):
         """tokens: (B, 1); ``pos`` tokens already cached.  Updates ``cache``
         in place; returns (logits (B, 1, V), cache)."""
         h = LM.hidden(params, cfg, run, tokens, mode="decode", cache=cache, pos=pos)
-        return LM._unembed(params, h), cache
+        return LM._unembed(params, cfg, h), cache

@@ -56,12 +56,19 @@ def _conv1d_causal(x, w, conv_state):
     return out, xp[:, -(W - 1):]
 
 
+def _promoted_matmul(x, w):
+    """``x @ w`` in the dtype JAX's promotion gives the pair: f32 params
+    against bf16 activations multiply in f32, as ``jnp.einsum`` does."""
+    dtype = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dtype) @ w.to(dtype)
+
+
 def _gates(p, xc):
     """Decay a and input b of the recurrence, both f32 (B, S, D)."""
     lam = F.softplus(p["lam"].float())
-    r = torch.sigmoid((xc @ p["w_gate_a"].to(xc.dtype)).float())
+    r = torch.sigmoid(_promoted_matmul(xc, p["w_gate_a"]).float())
     log_a = -RG_LRU_C * lam * r                     # log a_t  (<= 0)
-    i = torch.sigmoid((xc @ p["w_gate_x"].to(xc.dtype)).float())
+    i = torch.sigmoid(_promoted_matmul(xc, p["w_gate_x"]).float())
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - a.square(), min=1e-12))
     b = beta * i * xc.float()

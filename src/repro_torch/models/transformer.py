@@ -1,4 +1,4 @@
-"""Decoder stack: a Python loop over attention and RG-LRU blocks.
+"""Decoder stack: a Python loop over attention, RG-LRU and RWKV-6 blocks.
 
 ``layer_kinds`` (from the config) is the JAX package's ``n_groups``
 repetitions of the block pattern plus a tail, e.g. recurrentgemma-2b's 26
@@ -13,11 +13,11 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models import attention, ffn, rglru
+from repro_torch.models import attention, ffn, rglru, rwkv6
 from repro_torch.models.modules import rms_norm
 from repro_torch.utils.tree import ParamBuilder, zeros_init
 
-_PORTED_KINDS = ("attn", "rglru")
+_PORTED_KINDS = ("attn", "rglru", "rwkv")
 
 
 def pattern_of(cfg):
@@ -56,14 +56,15 @@ def check_supported(cfg, run) -> None:
         missing.append("qk_norm")
     if cfg.mlp_variant != "swiglu":
         missing.append(f"mlp_variant={cfg.mlp_variant!r}")
-    if not cfg.tie_embeddings:
-        missing.append("untied embeddings (tie_embeddings=False)")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: not ported to repro_torch yet: {', '.join(missing)}")
 
 
 def init_block(pb: ParamBuilder, cfg, kind: str):
+    if kind == "rwkv":      # its own norm_tm and norm_cm, no mlp
+        rwkv6.init_block(pb, cfg)
+        return
     pb.param("norm1", (cfg.d_model,), init=zeros_init)
     pb.param("norm2", (cfg.d_model,), init=zeros_init)
     if kind == "attn":
@@ -89,6 +90,10 @@ def init_stack(cfg, generator: torch.Generator, dtype) -> list:
 def block_forward(p, cfg, run, kind, x, positions, mode, cache=None, pos=None):
     """One block.  ``mode`` is "train" (no cache), "prefill" (fills ``cache``)
     or "decode" (one token at ``pos``, advances ``cache``).  Returns x."""
+    if kind == "rwkv":      # norms and residuals inside the block
+        if mode == "decode":
+            return rwkv6.decode(p, cfg, run, x, cache)
+        return rwkv6.apply(p, cfg, run, x, cache)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind == "attn":
         window = kind_window(cfg, kind)
@@ -112,7 +117,7 @@ def block_forward(p, cfg, run, kind, x, positions, mode, cache=None, pos=None):
 
 def init_cache(cfg, batch, max_seq, dtype, device) -> list:
     """One cache dict per layer: ring or full k/v for attention, h/conv for
-    RG-LRU."""
+    RG-LRU, state and the last normed tokens for RWKV-6."""
     caches = []
     for kind in cfg.layer_kinds:
         if kind == "attn":
@@ -120,6 +125,8 @@ def init_cache(cfg, batch, max_seq, dtype, device) -> list:
                                                window=kind_window(cfg, kind)))
         elif kind == "rglru":
             caches.append(rglru.init_cache(cfg, batch, dtype, device))
+        elif kind == "rwkv":
+            caches.append(rwkv6.init_cache(cfg, batch, dtype, device))
         else:
             raise ValueError(kind)
     return caches

@@ -1,5 +1,6 @@
-"""Helpers for holding the port against the JAX package: numpy <-> torch and
-the tolerance table.
+"""Helpers for holding the port against the JAX package: numpy <-> torch, the
+tolerance table, the kernels' check shapes and seeded inputs, and the
+perturbation of the leaves that ``LM.init`` sets to constants.
 
 Arrays cross between the two frameworks as numpy arrays (``np.asarray`` of a
 JAX array needs no JAX import here).  bf16 crosses as f32 values rounded to
@@ -10,6 +11,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.convert import params_from_jax
+from repro_torch.models import transformer
+
 # max abs error allowed between the port and the JAX package, and why
 TOL = {
     # the flash kernel bar of tests/test_kernels.py: f32 sums in another order;
@@ -18,11 +22,24 @@ TOL = {
     "flash_bf16": 2e-2,
     # single f32 modules: the same arithmetic up to summation order
     "module_f32": 1e-6,
+    # a module run in bf16 activations, relative to its outputs' magnitude
+    # (rel_diff): the two packages round f32 sums of another order to bf16,
+    # so outputs sit up to two bf16 ulps (2**-8 of the value each) apart
+    "module_bf16": 2.0 ** -6,
     # smoke-model logits and decode steps, the tests/test_decode.py bar
     "logits_f32": 1e-4,
     # the RG-LRU scan bar of tests/test_kernels.py, on y and h_T: f32 FMAs
     # against separate multiply and add, errors damped by |a| < 1
     "rglru_f32": 1e-5,
+    # the WKV6 bar of tests/test_kernels.py, on y and the final state: sums
+    # over N f32 terms in another order (and, against the JAX package's
+    # chunked kernel, its exponent clamp at -60)
+    "wkv6": 5e-5,
+    # an RWKV-6 block part that runs an S-step recurrence (the chunked or
+    # kernel time mix, apply, decode over steps) against the JAX package:
+    # f32 sums of another order over the steps, at state magnitudes near 5;
+    # about twice the largest error measured at the smoke config (7.0e-6)
+    "rwkv_block_f32": 1.5e-5,
 }
 
 # (B, Sq, Skv, Hq, Hkv, D, window, dtype) at which the CUDA kernel is held
@@ -64,6 +81,23 @@ RGLRU_CHECK_SHAPES = (
     # one step, and recurrentgemma-2b's prefill
     (3, 1, 2560),
     (4, 2112, 2560),
+)
+
+# (B, H, S, N, dtype of r, k, v) at which the CUDA WKV6 kernel is held
+# against its plain version on the card, all from a nonzero state0
+WKV6_CHECK_SHAPES = (
+    # the WKV6 shapes of tests/test_kernels.py
+    (2, 3, 37, 16, "float32"),
+    (1, 2, 64, 32, "float32"),
+    (2, 2, 100, 8, "float32"),
+    (1, 1, 16, 64, "float32"),
+    # a tail: S not a multiple of 64 (nor of the kernel's 16-step tiles) at
+    # N = 64; one step; the same tail with bf16 streams
+    (2, 4, 75, 64, "float32"),
+    (1, 2, 1, 16, "float32"),
+    (2, 4, 75, 64, "bfloat16"),
+    # rwkv6-3b's prefill in chip_smoke.py: 4 x 2100 tokens, 40 heads
+    (4, 40, 2100, 64, "float32"),
 )
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -108,6 +142,125 @@ def scan_inputs(shape, seed: int = 0, device="cpu"):
     return tuple(to_torch(x, "float32", device) for x in (a, b, h0))
 
 
+def wkv_inputs(shape, seed: int = 0, device="cpu", seq_major: bool = False):
+    """Seeded r, k, v (in the entry's dtype), logw, u and a nonzero state0
+    (f32) for one ``WKV6_CHECK_SHAPES`` entry, at tests/test_kernels.py's
+    scales: r and k x0.5, logw = -exp(0.5 n), u x0.3, state0 x0.2.  With
+    ``seq_major`` the four (B, H, S, N) streams hold the same values as (1, 2)
+    transposes of contiguous (B, S, H, N) tensors, the layout of the model's
+    heads."""
+    B, H, S, N, dtype = shape
+    rng = np.random.default_rng(seed)
+
+    def normal(*dims):
+        return rng.standard_normal(dims, dtype=np.float32)
+
+    r, k, v = normal(B, H, S, N) * 0.5, normal(B, H, S, N) * 0.5, normal(B, H, S, N)
+    logw = -np.exp(normal(B, H, S, N) * 0.5)
+    u, state0 = normal(H, N) * 0.3, normal(B, H, N, N) * 0.2
+
+    def stream(a, dt):
+        if seq_major:
+            return to_torch(a.transpose(0, 2, 1, 3), dt, device).transpose(1, 2)
+        return to_torch(a, dt, device)
+
+    return (*(stream(a, dtype) for a in (r, k, v)), stream(logw, "float32"),
+            *(to_torch(a, "float32", device) for a in (u, state0)))
+
+
+# The leaves that LM.init sets to constants, by layer kind ("cm.mix_k" is
+# mix_k of the child "cm"), besides the top-level final_norm.
+_CONSTANT_LEAVES = {
+    "attn": ("norm1", "norm2"),
+    "rglru": ("norm1", "norm2", "rec.lam"),
+    "rwkv": ("norm_tm", "norm_cm", "mix_r", "mix_k", "mix_v", "mix_w", "mix_g",
+             "w_bias", "w_lora_b", "bonus_u", "ln_x_scale", "cm.mix_k", "cm.mix_r"),
+}
+# std of the normal noise perturb_zero_leaves adds to each leaf: 0.1 on the
+# norm scales (gains 1 + scale), lam and the decay bias spread by 0.5, the
+# bonus at the kernel tests' scale of u; every mix_* is drawn afresh from
+# U[0, 1), the range of trained RWKV mixes
+_NOISE_STD = {"norm1": 0.1, "norm2": 0.1, "final_norm": 0.1, "norm_tm": 0.1,
+              "norm_cm": 0.1, "ln_x_scale": 0.1, "lam": 0.5, "w_bias": 0.5,
+              "bonus_u": 0.3, "w_lora_b": 0.1}
+
+
+def perturb_zero_leaves(params, cfg, generator: torch.Generator) -> int:
+    """Give every leaf that ``LM.init`` sets to zeros, ones or another
+    constant (norm scales, the RG-LRU ``lam``, RWKV-6's mixes, decay bias and
+    LoRA, bonus and ``ln_x_scale``) seeded noise from ``generator``, in place,
+    so that a parity test exercises them.  Normal noise of std
+    ``_NOISE_STD[name]`` is added; ``mix_*`` leaves are set to U[0, 1) draws.
+    Leaves are visited in layer order, then by name.  Returns the number of
+    leaves touched."""
+    dev = generator.device
+
+    def perturb(leaf, name) -> None:
+        if name.startswith("mix_"):
+            leaf.copy_(torch.rand(leaf.shape, generator=generator, device=dev))
+        else:
+            noise = torch.randn(leaf.shape, generator=generator, device=dev)
+            leaf.add_(noise.mul_(_NOISE_STD[name]).to(leaf.dtype))
+
+    touched = []
+    for layer, kind in zip(params["layers"], cfg.layer_kinds, strict=True):
+        for path in sorted(_CONSTANT_LEAVES[kind]):
+            *parents, name = path.split(".")
+            node = layer
+            for parent in parents:
+                node = node[parent]
+            touched.append((node[name], name))
+    touched.append((params["final_norm"], "final_norm"))
+    with torch.no_grad():
+        for leaf, name in touched:
+            perturb(leaf, name)
+    return len(touched)
+
+
+def params_to_jax_layout(params, cfg) -> dict:
+    """The port's params -> a tree of f32 numpy arrays laid out as the JAX
+    package's ``LM.init`` lays them out (``stack.groups`` stacked over the
+    groups, then ``stack.tail``): the inverse of ``convert.params_from_jax``,
+    so that both packages can run on the same perturbed weights."""
+    pattern, n_groups, tail = transformer.grouping(cfg)
+    layers = params["layers"]
+
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return np.stack([to_numpy(t) for t in trees])
+
+    def one(tree):
+        return {k: one(v) if isinstance(v, dict) else to_numpy(v) for k, v in tree.items()}
+
+    P = len(pattern)
+    tree = {k: to_numpy(v) for k, v in params.items() if k != "layers"}
+    tree["stack"] = {
+        "groups": tuple(stack([layers[g * P + j] for g in range(n_groups)])
+                        for j in range(P)),
+        "tail": tuple(one(layers[n_groups * P + i]) for i in range(len(tail))),
+    }
+    return tree
+
+
+def perturbed_pair(tree, cfg, seed: int):
+    """JAX ``LM.init`` params of ``cfg`` (numpy leaves) -> (the port's params
+    on the CPU with ``perturb_zero_leaves`` applied from ``seed``, the same
+    weights laid out as the JAX package's tree), for parity tests on weights
+    whose norms, mixes and biases are not at their initial constants."""
+    params = params_from_jax(tree, cfg, device="cpu")
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    perturb_zero_leaves(params, cfg, gen)
+    return params, params_to_jax_layout(params, cfg)
+
+
 def max_abs_diff(a, b) -> float:
     return float(np.max(np.abs(to_numpy(a).astype(np.float64)
                                - to_numpy(b).astype(np.float64))))
+
+
+def rel_diff(a, b) -> float:
+    """``max_abs_diff(a, b)`` over ``max(1, max |b|)``: an error measured in
+    units of the reference's magnitude, for bars that scale with it."""
+    return max_abs_diff(a, b) / max(1.0, float(np.max(np.abs(to_numpy(b)))))

@@ -1,4 +1,4 @@
-"""The CUDA kernels (flash attention, RG-LRU scan) against their plain
+"""The CUDA kernels (flash attention, RG-LRU scan, WKV6) against their plain
 versions, on the card.
 
 Needs an NVIDIA card and nvcc; skips elsewhere.  It imports no JAX, so it
@@ -14,8 +14,12 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.rglru.ops import linear_scan
 from repro_torch.kernels.rglru.ref import linear_scan_ref
+from repro_torch.kernels.rwkv6 import ops as wkv6_ops
+from repro_torch.kernels.rwkv6.ops import wkv6
+from repro_torch.kernels.rwkv6.ref import wkv6_ref
 from repro_torch.testing import (KERNEL_CHECK_SHAPES, RGLRU_CHECK_SHAPES, TOL,
-                                 attention_inputs, scan_inputs)
+                                 WKV6_CHECK_SHAPES, attention_inputs, scan_inputs,
+                                 wkv_inputs)
 
 pytestmark = pytest.mark.cuda
 
@@ -90,3 +94,50 @@ def test_scan_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         linear_scan(a, b, h0.cpu())
     assert linear_scan.launches == before
+
+
+@pytest.mark.parametrize("shape", WKV6_CHECK_SHAPES, ids=str)
+def test_wkv6_kernel_matches_plain_version(cuda, shape):
+    r, k, v, logw, u, s0 = wkv_inputs(shape, device=cuda)
+    before = wkv6.launches
+    y, sT = wkv6(r, k, v, logw, u, s0)
+    torch.cuda.synchronize()
+    assert wkv6.launches == before + 1
+    ry, rsT = wkv6_ref(r, k, v, logw, u, s0)
+    assert y.shape == r.shape and sT.shape == s0.shape
+    assert y.dtype == sT.dtype == torch.float32
+    assert torch.isfinite(y).all() and torch.isfinite(sT).all()
+    assert (y - ry).abs().max().item() < TOL["wkv6"]
+    assert (sT - rsT).abs().max().item() < TOL["wkv6"]
+
+
+@pytest.mark.parametrize("seq_major", [False, True])
+@pytest.mark.parametrize("col_split", [1, 2, 4])
+@pytest.mark.parametrize("shape", [WKV6_CHECK_SHAPES[4], WKV6_CHECK_SHAPES[6]], ids=str)
+def test_wkv6_kernel_layouts_and_column_splits(cuda, shape, col_split, seq_major):
+    """The model's (B, S, H, N) layout, and every column split the kernel
+    builds at N = 64, against the plain version."""
+    r, k, v, logw, u, s0 = wkv_inputs(shape, device=cuda, seq_major=seq_major)
+    y, sT = wkv6_ops.launch(r, k, v, logw, u, s0, col_split=col_split)
+    ry, rsT = wkv6_ref(r, k, v, logw, u, s0)
+    assert y.stride() == r.stride()
+    assert (y - ry).abs().max().item() < TOL["wkv6"]
+    assert (sT - rsT).abs().max().item() < TOL["wkv6"]
+
+
+def test_wkv6_kernel_refuses_what_it_does_not_take(cuda):
+    r, k, v, logw, u, s0 = wkv_inputs(WKV6_CHECK_SHAPES[0], device=cuda)
+    before = wkv6.launches
+    with pytest.raises(TypeError):
+        wkv6(r.half(), k.half(), v.half(), logw, u, s0)
+    with pytest.raises(TypeError):
+        wkv6(r, k, v, logw.bfloat16(), u, s0)
+    with pytest.raises(ValueError):
+        wkv6(r.transpose(2, 3), k, v, logw, u, s0)
+    with pytest.raises(ValueError):
+        wkv6(r, k, v, logw, u, s0.cpu())
+    with pytest.raises(ValueError, match="head size"):
+        n = (1, 1, 4, 12)
+        z = torch.zeros(n, device=cuda)
+        wkv6(z, z, z, z, torch.zeros(1, 12, device=cuda), torch.zeros(1, 1, 12, 12, device=cuda))
+    assert wkv6.launches == before

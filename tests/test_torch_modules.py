@@ -46,7 +46,7 @@ def test_smollm_config_matches_jax(getter):
     assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-32b", "rwkv6-3b", "granite-8b",
+@pytest.mark.parametrize("arch", ["qwen3-32b", "musicgen-large", "granite-8b",
                                   "mixtral-8x22b"])
 def test_registry_refuses_archs_not_yet_ported(arch):
     assert arch in jax_configs.ARCH_IDS

@@ -23,7 +23,7 @@ from repro_torch.kernels.rglru.ops import linear_scan
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models import LM, attention, transformer
 from repro_torch.serve.engine import ServeEngine
-from repro_torch.testing import TOL, max_abs_diff
+from repro_torch.testing import TOL, max_abs_diff, perturbed_pair
 
 ARCH = "recurrentgemma-2b"
 JAX_RUN = JaxRunConfig(param_dtype="float32", activation_dtype="float32",
@@ -49,6 +49,22 @@ def model():
     jax_params, params = _pair(jax_cfg, cfg)
     return (jax_cfg, jax_params, cfg,
             RunConfig(**dataclasses.asdict(JAX_RUN)), params)
+
+
+@pytest.fixture(scope="module")
+def perturbed_model(model):
+    """The same weights with every leaf LM.init sets to a constant (norm
+    scales, final_norm, lam) given seeded noise, in both packages."""
+    jax_cfg, jax_params, cfg, run, _ = model
+    params, tree = perturbed_pair(jax.tree_util.tree_map(np.asarray, jax_params), cfg, 1)
+    return jax_cfg, jax.tree_util.tree_map(jnp.asarray, tree), cfg, run, params
+
+
+# (use_pallas, weights); the cases on the initial weights keep their ids
+_WEIGHTS = [pytest.param(False, "model", id="False"),
+            pytest.param(True, "model", id="True"),
+            pytest.param(False, "perturbed_model", id="False-perturbed"),
+            pytest.param(True, "perturbed_model", id="True-perturbed")]
 
 
 def _runs(run, use_pallas):
@@ -122,9 +138,9 @@ def test_init_gives_each_layer_its_kind():
 
 # ---------------------------------------------------------------- model
 
-@pytest.mark.parametrize("use_pallas", [False, True])
-def test_logits_and_prefill_match_jax(model, use_pallas):
-    jax_cfg, jax_params, cfg, run, params = model
+@pytest.mark.parametrize("use_pallas,weights", _WEIGHTS)
+def test_logits_and_prefill_match_jax(request, use_pallas, weights):
+    jax_cfg, jax_params, cfg, run, params = request.getfixturevalue(weights)
     jax_run, run = _runs(run, use_pallas)
     toks = _tokens(3, (2, 21), cfg.vocab_size)          # longer than the window
     ours = LM.logits(params, cfg, run, torch.from_numpy(toks))
@@ -153,10 +169,10 @@ def _assert_cache_matches(cache, jax_cache, cfg):
             assert max_abs_diff(cache[i][name], leaf) < TOL["logits_f32"], (i, name)
 
 
-@pytest.mark.parametrize("use_pallas", [False, True])
-def test_decode_steps_past_the_window_match_jax(model, use_pallas):
+@pytest.mark.parametrize("use_pallas,weights", _WEIGHTS)
+def test_decode_steps_past_the_window_match_jax(request, use_pallas, weights):
     """S0 = 19 > window 16: prefill rolls the ring and every step wraps it."""
-    jax_cfg, jax_params, cfg, run, params = model
+    jax_cfg, jax_params, cfg, run, params = request.getfixturevalue(weights)
     jax_run, run = _runs(run, use_pallas)
     toks = _tokens(4, (2, 19), cfg.vocab_size)
     _, cache = LM.prefill(params, cfg, run, torch.from_numpy(toks), max_seq=64)

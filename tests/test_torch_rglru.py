@@ -21,7 +21,7 @@ from repro_torch.configs.base import RunConfig
 from repro_torch.kernels.rglru.ops import linear_scan
 from repro_torch.kernels.rglru.ref import linear_scan_ref
 from repro_torch.models import rglru
-from repro_torch.testing import TOL, max_abs_diff, scan_inputs, to_torch
+from repro_torch.testing import TOL, max_abs_diff, rel_diff, scan_inputs, to_torch
 from repro_torch.utils.tree import ParamBuilder
 
 ARCH = "recurrentgemma-2b"
@@ -134,6 +134,36 @@ def test_gates_match_jax():
     assert a.dtype == b.dtype == torch.float32
     assert max_abs_diff(a, ja) < TOL["module_f32"]
     assert max_abs_diff(b, jb) < TOL["module_f32"]
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_gates_and_apply_match_jax_with_f32_params_and_bf16_activations(use_pallas):
+    """JAX's einsum promotes bf16 activations against f32 gate weights to
+    f32; a port that casts the weights down to bf16 is 4e-3 off in a.  The
+    f32 results (a, b, the carried h) agree to summation order; the bf16
+    output to the bf16 bar."""
+    p, jp = _both(_params(2))
+    xc = _rng(3).standard_normal((2, 9, 24), dtype=np.float32) * 2
+    a, b = rglru._gates(p, to_torch(xc, "bfloat16"))
+    ja, jb = jax_rglru._gates(jp, jnp.asarray(xc).astype(jnp.bfloat16))
+    assert a.dtype == b.dtype == torch.float32
+    assert max_abs_diff(a, ja) < TOL["module_f32"]
+    assert max_abs_diff(b, jb) < TOL["module_f32"]
+
+    cfg, jax_cfg = _cfg()
+    mixed = dict(param_dtype="float32", activation_dtype="bfloat16", use_pallas=use_pallas)
+    x = _rng(9).standard_normal((2, 11, 24), dtype=np.float32)
+    c = _cache(10)
+    cache = {"h": to_torch(c["h"]), "conv": to_torch(c["conv"], "bfloat16")}
+    jy, jcache = jax_rglru.apply(
+        jp, jax_cfg, JaxRunConfig(**mixed), jnp.asarray(x).astype(jnp.bfloat16),
+        {"h": jnp.asarray(c["h"]), "conv": jnp.asarray(c["conv"]).astype(jnp.bfloat16)},
+        use_pallas=use_pallas)
+    y = rglru.apply(p, cfg, RunConfig(**mixed), to_torch(x, "bfloat16"), cache)
+    assert y.dtype == torch.bfloat16 and cache["h"].dtype == torch.float32
+    assert rel_diff(y, jy) < TOL["module_bf16"]
+    assert max_abs_diff(cache["h"], jcache["h"]) < TOL["module_f32"]
+    assert rel_diff(cache["conv"], jcache["conv"]) < TOL["module_bf16"]
 
 
 @pytest.mark.parametrize("use_kernel", [False, True])
