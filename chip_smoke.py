@@ -7,7 +7,8 @@ Phases, one JSON line each:
   1. device  - the card's name and power limit (nvidia-smi) and torch's view;
   2. build   - nvcc builds every CUDA kernel of the port from this checkout,
                one nvcc per source, all started together; ptxas's registers
-               and spills for every template;
+               and spills for every template (a spill in any flash_fwd_kernel
+               instantiation fails the run);
   3. check   - each kernel against its plain PyTorch version on the card:
                flash_fwd at repro_torch.testing.KERNEL_CHECK_SHAPES,
                rglru_scan at RGLRU_CHECK_SHAPES, wkv6 at WKV6_CHECK_SHAPES
@@ -15,7 +16,9 @@ Phases, one JSON line each:
                model's (B, S, H, N) layout);
   4. time    - kernel, plain version and library yardstick (CUDA events,
                median of 30 after warm-up) beside the kernel's bound, at the
-               shapes the serving paths give each kernel;
+               shapes the serving paths give each kernel (flash also at
+               recurrentgemma's prefill shape in bf16), with flash's achieved
+               TFLOP/s and its bound on CUDA cores beside the tensor-core one;
   5. serve   - full-width smollm-360m (fp32, seeded random weights) answers
                4 requests of 256 prompt tokens with 32 greedy new tokens
                through ServeEngine.generate, once and cold: its times are
@@ -75,12 +78,16 @@ from repro_torch.kernels.rwkv6.ref import wkv6_ref  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.testing import (KERNEL_CHECK_SHAPES, RGLRU_CHECK_SHAPES, TOL,  # noqa: E402
-                                 WKV6_CHECK_SHAPES, attention_inputs,
+                                 WKV6_CHECK_SHAPES, attention_inputs, flash_flops,
                                  perturb_zero_leaves, scan_inputs, wkv_inputs)
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_FLOPS = {"float32": 67e12,     # f32 on CUDA cores
+              "tf32": 495e12,       # TF32 on tensor cores
               "bfloat16": 989e12}   # bf16 on tensor cores
+# flash_fwd takes f32 inputs through 3xTF32: each f32 product is three TF32
+# products (lo*hi + hi*lo + hi*hi), so its f32 bound is 3 x flops at the TF32 peak
+FLASH_F32_TF32_TERMS = 3
 HBM_BYTES_PER_S = 3.35e12
 
 # each kernel: its wrapper (whose .launches counts launches), ops module
@@ -111,6 +118,9 @@ RG_PROMPT, RG_NEW = 2112, 32
 MAIN_SHAPE = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 15, 5, 64, None, "float32")
 SLICE_SHAPE = (4, 512, 512, 15, 5, 64, None, "float32")
 RG_SHAPE = (SERVE_BATCH, RG_PROMPT, RG_PROMPT, 10, 1, 256, 2048, "float32")
+RG_SHAPE_BF16 = RG_SHAPE[:7] + ("bfloat16",)
+# the flash shapes the time phase measures (the serving paths run f32)
+FLASH_TIME_SHAPES = (MAIN_SHAPE, SLICE_SHAPE, RG_SHAPE, RG_SHAPE_BF16)
 RG_SCAN_SHAPE = (SERVE_BATCH, RG_PROMPT, 2560)
 # rwkv6-3b: a prompt that is not a multiple of 64 (nor of the kernel's tile)
 RWKV_PROMPT, RWKV_NEW = 2100, 32
@@ -143,22 +153,22 @@ def time_ms(fn, reps: int = 30, warmup: int = 5) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def live_pairs(Sq: int, Skv: int, window) -> int:
-    """(q, k) pairs the causal (windowed) mask keeps, top-left aligned."""
-    total = 0
-    for i in range(Sq):
-        lo = 0 if window is None else max(0, i - window + 1)
-        total += max(0, min(i, Skv - 1) - lo + 1)
-    return total
-
-
-def flash_bound(shape):
-    """Least time the card could take: (ms, "bytes" | "operations")."""
+def flash_bound(shape, cuda_cores: bool = False):
+    """Least time the card could take: (ms, "bytes" | "operations").  By the
+    kernel's route: f32 as FLASH_F32_TF32_TERMS TF32 products at the TF32
+    peak, bf16 at the bf16 peak; with ``cuda_cores``, every dtype at the f32
+    CUDA-core peak (the figure of the CUDA-core kernel before tensor cores)."""
     B, Sq, Skv, Hq, Hkv, D, window, dtype = shape
-    flops = 4 * D * Hq * B * live_pairs(Sq, Skv, window)   # QK^T and PV
+    flops = flash_flops(shape)
     elem = 4 if dtype == "float32" else 2
     nbytes = elem * (2 * B * Sq * Hq * D + 2 * B * Skv * Hkv * D)
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    if cuda_cores:
+        t_ops = flops / PEAK_FLOPS["float32"]
+    elif dtype == "float32":
+        t_ops = FLASH_F32_TF32_TERMS * flops / PEAK_FLOPS["tf32"]
+    else:
+        t_ops = flops / PEAK_FLOPS["bfloat16"]
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -200,7 +210,8 @@ def wkv_bound(shape):
 
 
 def phase_build() -> None:
-    """One nvcc for each kernel source, all started together."""
+    """One nvcc for each kernel source, all started together; fails if
+    ptxas spilled any flash_fwd_kernel instantiation."""
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         futures = {name: pool.submit(nvcc_build.build, k["ops"].SOURCE)
                    for name, k in KERNELS.items()}
@@ -209,6 +220,12 @@ def phase_build() -> None:
         k["ops"].library()
         emit("build", kernel=name, seconds=built[name].seconds,
              library=built[name].path.name, ptxas=built[name].ptxas_lines())
+    flash = [e for e in built["flash_fwd"].kernels() if "flash_fwd_kernel" in e["name"]]
+    spilled = [e for e in flash if e["spill_stores"] or e["spill_loads"]]
+    emit("build", kernel="flash_fwd", instantiations=flash, spilled=spilled)
+    if not flash or spilled:
+        raise RuntimeError(f"flash_fwd_kernel: ptxas reports spills in {spilled} "
+                           f"(or no instantiation in its log: {len(flash)})")
 
 
 def check_flash(dev) -> dict:
@@ -227,7 +244,7 @@ def check_flash(dev) -> dict:
         rows.append({"shape": list(shape), "max_abs_err": err, "tol": tol})
         if not (finite and err < tol):
             bad.append(shape)
-        if shape in (MAIN_SHAPE, RG_SHAPE):
+        if shape in FLASH_TIME_SHAPES:
             errs[shape] = err
         del q, k, v, out, ref
     emit("check", kernel="flash_fwd", results=rows, failed=[list(s) for s in bad])
@@ -304,14 +321,17 @@ def time_flash(shape, dev) -> dict:
     lib_err = (library().transpose(1, 2).float()
                - attention_ref(q, k, v, window=window).float()).abs().max().item()
     bound, bound_by = flash_bound(shape)
+    ms = time_ms(lambda: flash_attention(q, k, v, causal=True, window=window))
     return {
         "shape": list(shape),
-        "ms": time_ms(lambda: flash_attention(q, k, v, causal=True, window=window)),
+        "ms": ms,
+        "tflops": flash_flops(shape) / (ms * 1e-3) / 1e12,
         "plain_ms": time_ms(lambda: attention_ref(q, k, v, causal=True, window=window)),
         "library_ms": time_ms(library),
         "library": "torch.nn.functional.scaled_dot_product_attention",
         "library_max_abs_err": lib_err,
         "bound_ms": bound, "bound_by": bound_by,
+        "bound_cuda_cores_ms": flash_bound(shape, cuda_cores=True)[0],
     }
 
 
@@ -352,7 +372,7 @@ def time_wkv(shape, dev) -> dict:
 
 def phase_time(dev) -> dict:
     """Times of each kernel at the shapes the serving paths give it."""
-    flash = {s: time_flash(s, dev) for s in (MAIN_SHAPE, SLICE_SHAPE, RG_SHAPE)}
+    flash = {s: time_flash(s, dev) for s in FLASH_TIME_SHAPES}
     emit("time", kernel="flash_fwd", peak_flops=PEAK_FLOPS,
          hbm_bytes_per_s=HBM_BYTES_PER_S, results=list(flash.values()))
     scan = time_scan(RG_SCAN_SHAPE, dev)
@@ -512,10 +532,13 @@ def main() -> int:
                 "library_ms": row["library_ms"], "shape": row["shape"]}
 
     flash = entry("flash_fwd", timing["flash_fwd"][MAIN_SHAPE], flash_errs[MAIN_SHAPE])
-    rg = timing["flash_fwd"][RG_SHAPE]
-    flash["per_shape"] = [{k: rg[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
-                                              "bound_by", "library_ms")}
-                          | {"max_abs_err": flash_errs[RG_SHAPE]}]
+    flash["bound_cuda_cores_ms"] = timing["flash_fwd"][MAIN_SHAPE]["bound_cuda_cores_ms"]
+    flash["tflops"] = timing["flash_fwd"][MAIN_SHAPE]["tflops"]
+    flash["per_shape"] = [
+        {k: row[k] for k in ("shape", "ms", "tflops", "plain_ms", "bound_ms", "bound_by",
+                             "bound_cuda_cores_ms", "library_ms")}
+        | {"max_abs_err": flash_errs[shape]}
+        for shape, row in timing["flash_fwd"].items() if shape != MAIN_SHAPE]
     scan = entry("rglru_scan", timing["rglru_scan"], scan_err)
     wkv = entry("wkv6", timing["wkv6"], wkv_err)
     print(json.dumps({"kernels": [flash, scan, wkv]}), flush=True)

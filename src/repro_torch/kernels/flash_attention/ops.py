@@ -2,7 +2,10 @@
 
 On a CUDA tensor it launches the kernel or raises; on a CPU tensor it runs
 the plain version, ``attention_ref``.  ``flash_attention.launches`` counts
-kernel launches and nothing else.
+kernel launches and nothing else.  ``variants`` and ``launch_variant`` run
+the kernel's other tile shapes, for ``bench.py`` and the card tests, from a
+second library built with ``-DFLASH_BENCH_VARIANTS``; the serving library
+holds only the default tiles.
 """
 from __future__ import annotations
 
@@ -21,6 +24,16 @@ _SIGNATURES = {
                          _I32, _I32, _I32, ctypes.c_float, _P]),
     "flash_fwd_error_string": (ctypes.c_char_p, [_I32]),
 }
+VARIANT_FLAGS = ("-DFLASH_BENCH_VARIANTS",)
+_VARIANT_SIGNATURES = {
+    **_SIGNATURES,
+    "flash_fwd_variant": (_I32, [_I32, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
+                                 _I32, _I32, _I32, _I32, ctypes.c_float, _P]),
+    "flash_fwd_variant_count": (_I32, []),
+    "flash_fwd_variant_info": (_I32, [_I32, ctypes.POINTER(_I32)]),
+}
+_VARIANT_FIELDS = ("bf16", "dp", "warps", "bkv", "dsplit", "qsplit", "default",
+                   "smem_bytes")
 
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
@@ -58,6 +71,28 @@ def library() -> ctypes.CDLL:
     return nvcc_build.load(SOURCE, _SIGNATURES)
 
 
+def variant_library() -> ctypes.CDLL:
+    """The library with every tile variant, built with ``VARIANT_FLAGS``."""
+    return nvcc_build.load(SOURCE, _VARIANT_SIGNATURES, VARIANT_FLAGS)
+
+
+def _run(fn, lib, q, k, v, causal, window, *lead) -> torch.Tensor:
+    """Launch ``fn`` (``flash_fwd`` or ``flash_fwd_variant`` with ``lead``
+    arguments) on CUDA tensors checked by ``_check``; raise on its error."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(*lead, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 int(q.dtype == torch.bfloat16), B, Sq, Skv, Hq, Hkv, D,
+                 int(causal), window or 0, D ** -0.5, stream)
+    if err:
+        msg = lib.flash_fwd_error_string(err).decode()
+        raise RuntimeError(f"flash_fwd launch failed: CUDA error {err} ({msg})")
+    return out
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window=None) -> torch.Tensor:
     """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D) in q's dtype.
@@ -71,19 +106,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     lib = library()
-    B, Sq, Hq, D = q.shape
-    Skv, Hkv = k.shape[1], k.shape[2]
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                            int(q.dtype == torch.bfloat16), B, Sq, Skv, Hq, Hkv, D,
-                            int(causal), window or 0, D ** -0.5, stream)
-    if err:
-        msg = lib.flash_fwd_error_string(err).decode()
-        raise RuntimeError(f"flash_fwd launch failed: CUDA error {err} ({msg})")
+    out = _run(lib.flash_fwd, lib, q, k, v, causal, window)
     flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+
+
+def variants() -> list:
+    """Every tile variant of ``variant_library()``, as dicts of
+    ``_VARIANT_FIELDS`` plus ``index``; the default of each (type, DP) is
+    the one ``flash_attention`` launches."""
+    lib = variant_library()
+    out = []
+    for i in range(lib.flash_fwd_variant_count()):
+        info = (_I32 * len(_VARIANT_FIELDS))()
+        if lib.flash_fwd_variant_info(i, info):
+            raise RuntimeError(f"flash_fwd_variant_info({i}) failed")
+        out.append({"index": i, **dict(zip(_VARIANT_FIELDS, info))})
+    return out
+
+
+def launch_variant(index: int, q, k, v, *, causal: bool = True, window=None):
+    """Run tile variant ``index`` of ``variants()`` on CUDA tensors; it must
+    be of q's type and padded head dim.  Not counted in
+    ``flash_attention.launches``."""
+    _check(q, k, v, window)
+    if q.device.type != "cuda":
+        raise ValueError(f"launch_variant runs on cuda, not {q.device}")
+    lib = variant_library()
+    return _run(lib.flash_fwd_variant, lib, q, k, v, causal, window, index)

@@ -63,11 +63,28 @@ KERNEL_CHECK_SHAPES = (
     (1, 100, 37, 6, 2, 32, 16, "float32"),
     (2, 70, 130, 4, 2, 128, None, "bfloat16"),
     # head_dim 256: recurrentgemma-2b's prefill (MQA, window 2048, a prompt
-    # past the window), a bf16 windowed shape, and head_dim 200 padded to 256
-    # with Sq > Skv and rows that have no live key
+    # past the window) in f32 and bf16, a bf16 windowed shape, and head_dim
+    # 200 padded to 256 with Sq > Skv and rows that have no live key
     (4, 2112, 2112, 10, 1, 256, 2048, "float32"),
+    (4, 2112, 2112, 10, 1, 256, 2048, "bfloat16"),
     (2, 300, 300, 10, 1, 256, 128, "bfloat16"),
     (1, 130, 70, 4, 2, 200, 32, "float32"),
+    # the tensor-core kernel's tile edges: one query and one key; lengths one
+    # past the kv tiles of 32 and 64 keys (and the 16 of a D=256 variant);
+    # head_dim 128 in f32; the f32 twin of the MQA (G = 10) D=256 shape; D=256
+    # with Sq > Skv and rows that have no live key
+    (2, 1, 1, 4, 2, 64, None, "float32"),
+    (2, 33, 33, 4, 2, 64, None, "float32"),
+    (1, 65, 65, 4, 1, 256, None, "float32"),
+    (1, 65, 65, 4, 2, 128, None, "bfloat16"),
+    (1, 17, 17, 2, 1, 256, None, "float32"),
+    (2, 70, 130, 4, 2, 128, None, "float32"),
+    (2, 300, 300, 10, 1, 256, 128, "float32"),
+    (1, 130, 70, 4, 2, 256, 32, "float32"),
+    # rows that are not 16-byte multiples (staged by plain loads, not
+    # cp.async), with an odd head dim in f32
+    (1, 40, 40, 4, 2, 20, None, "bfloat16"),
+    (1, 50, 50, 2, 1, 33, 16, "float32"),
 )
 
 # (B, S, D) at which the CUDA RG-LRU scan is held against its plain version
@@ -101,6 +118,88 @@ WKV6_CHECK_SHAPES = (
 )
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def live_pairs(Sq: int, Skv: int, window) -> int:
+    """(q, k) pairs the causal (windowed) mask keeps, top-left aligned."""
+    total = 0
+    for i in range(Sq):
+        lo = 0 if window is None else max(0, i - window + 1)
+        total += max(0, min(i, Skv - 1) - lo + 1)
+    return total
+
+
+def flash_flops(shape) -> int:
+    """The flops of causal attention at one ``KERNEL_CHECK_SHAPES`` entry:
+    4 * D per live (q, k) pair and query head (Q K^T and P V)."""
+    B, Sq, Skv, Hq, Hkv, D, window, dtype = shape
+    return 4 * D * Hq * B * live_pairs(Sq, Skv, window)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest TF32 value (10 stored mantissa bits), ties away from
+    zero: the rounding of ``cvt.rna.tf32.f32``.  Finite inputs only."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor, terms: int):
+    """(hi, lo) with hi = tf32(x), lo = tf32(x - hi) for ``terms`` = 3, the
+    kernel's split; lo = 0 for ``terms`` = 1 (plain TF32)."""
+    hi = tf32_round(x)
+    if terms == 1:
+        return hi, torch.zeros_like(hi)
+    if terms != 3:
+        raise ValueError(f"terms must be 1 or 3, not {terms}")
+    return hi, tf32_round(x.float() - hi)
+
+
+def _split_product(a, b, terms: int, equation: str) -> torch.Tensor:
+    """``einsum(equation, a, b)`` from the kernel's TF32 terms: each product
+    of terms is exact, summed in f64 and rounded to f32 once.  The tensor
+    cores do not sum so: they truncate the sums they accumulate, which the
+    kernel keeps short (S in 4-k-step chunks, P V per tile).  That
+    accumulation is left out here; only the card tests check it."""
+    (ah, al), (bh, bl) = split_tf32(a, terms), split_tf32(b, terms)
+    pairs = [(ah, bh)] if terms == 1 else [(al, bh), (ah, bl), (ah, bh)]
+    return sum(torch.einsum(equation, x.double(), y.double()) for x, y in pairs).float()
+
+
+def tf32_pv_key_order() -> list:
+    """Which key of an 8-key step the tf32 P V fragments put at each column
+    of the MMA's k index: the score fragment holds keys {2t, 2t+1} in lane t,
+    fed where the A fragment expects {t, t+4}, so column c is key 2c for c < 4
+    and key 2(c - 4) + 1 for c >= 4.  V's B fragment reads its rows in the
+    same order."""
+    return [2 * c if c < 4 else 2 * (c - 4) + 1 for c in range(8)]
+
+
+def attention_split_tf32(q, k, v, causal: bool = True, window=None,
+                         terms: int = 3) -> torch.Tensor:
+    """Plain emulation of the flash kernel's f32 route: Q K^T and P V from
+    TF32 terms (``terms`` = 3: lo*hi + hi*lo + hi*hi; 1: hi*hi), the softmax
+    in f32 as ``attention_ref`` masks it, P unnormalised and split like the
+    operands, divided by its row sum at the end.  The products are summed
+    exactly (``_split_product``), not with the MMAs' truncated accumulation,
+    so this shows how accurate the split is, not that the kernel's
+    accumulation holds the bar.  q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D),
+    f32; returns f32 (B, Sq, Hq, D)."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qg = q.float().permute(0, 2, 1, 3).reshape(B, Hkv, G, Sq, D)
+    kg, vg = (t.float().permute(0, 2, 1, 3) for t in (k, v))
+    s = _split_product(qg, kg, terms, "bhgqd,bhkd->bhgqk") * D ** -0.5
+    qp, kp = torch.arange(Sq)[:, None], torch.arange(Skv)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool)
+    if causal:
+        mask &= kp <= qp
+    if window is not None:
+        mask &= (qp - kp) < window
+    s = torch.where(mask, s, torch.full((), -1e30))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = _split_product(p, vg, terms, "bhgqk,bhkd->bhgqd") / p.sum(-1, keepdim=True)
+    return o.reshape(B, Hq, Sq, D).permute(0, 2, 1, 3)
 
 
 def to_torch(a, dtype: str = "float32", device="cpu") -> torch.Tensor:

@@ -10,6 +10,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.rglru.ops import linear_scan
@@ -48,14 +49,41 @@ def test_kernel_matches_plain_version(cuda, shape):
     assert err < TOL["flash_f32" if dtype == "float32" else "flash_bf16"], err
 
 
+@pytest.mark.parametrize("D", [32, 256])
 @pytest.mark.parametrize("Sq,Skv", [(70, 130), (130, 70)])
 @pytest.mark.parametrize("window", [None, 8])
-def test_kernel_without_causal_mask_matches_plain_version(cuda, Sq, Skv, window):
+def test_kernel_without_causal_mask_matches_plain_version(cuda, Sq, Skv, window, D):
     """(130, 70) with a window has rows with no live key."""
-    q, k, v = attention_inputs((2, Sq, Skv, 4, 2, 32, window, "float32"), device=cuda)
+    q, k, v = attention_inputs((2, Sq, Skv, 4, 2, D, window, "float32"), device=cuda)
     out = flash_attention(q, k, v, causal=False, window=window)
     ref = attention_ref(q, k, v, causal=False, window=window)
     assert (out - ref).abs().max().item() < TOL["flash_f32"]
+
+
+# the check shapes of every (type, padded head dim), small enough to repeat
+# for each tile variant
+VARIANT_SHAPES = [s for s in KERNEL_CHECK_SHAPES if s[0] * s[1] * s[2] * s[3] <= 2_000_000]
+
+
+@pytest.mark.parametrize("shape", VARIANT_SHAPES, ids=str)
+def test_every_tile_variant_matches_plain_version(cuda, shape):
+    """Every variant the variant library holds for the shape's type and head
+    dim, not only the default that flash_attention launches; none counts a
+    launch."""
+    window, dtype = shape[6], shape[7]
+    q, k, v = attention_inputs(shape, device=cuda)
+    ref = attention_ref(q, k, v, causal=True, window=window).float()
+    dp = next(p for p in (32, 64, 128, 256) if shape[5] <= p)
+    mine = [w for w in flash_ops.variants()
+            if w["bf16"] == (dtype == "bfloat16") and w["dp"] == dp]
+    assert sum(w["default"] for w in mine) == 1
+    before = flash_attention.launches
+    for w in mine:
+        out = flash_ops.launch_variant(w["index"], q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        err = (out.float() - ref).abs().max().item()
+        assert err < TOL["flash_f32" if dtype == "float32" else "flash_bf16"], (w, err)
+    assert flash_attention.launches == before
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):
